@@ -1,4 +1,4 @@
-// TPU-host native runtime: sample conversion + threaded block feed.
+// Host native runtime: sample conversion + threaded block feed.
 //
 // Native equivalents of the reference's C++ real-time layer where the work
 // is genuinely host-bound (SURVEY.md §2.1):
@@ -7,7 +7,7 @@
 //  * bounded-queue producer thread  (std::queue + mutex + cvar, cap 6,
 //                                    src/project.cpp:141-149,181-189,
 //                                    QUEUE_ELEMS include/dy4.h:30)
-// The DSP itself runs on the TPU (jax/XLA); this feed overlaps host reads
+// The DSP itself runs on the device (jax/XLA); this feed overlaps host reads
 // and normalization with device compute, which is the role the reference's
 // producer thread played for its consumer.
 //
@@ -61,8 +61,7 @@ struct BlockReader {
   // the queue carries RAW bytes: the float consumer API normalizes at
   // pop (a ~0.1 ms pass, negligible against device block time), and the
   // raw consumer API hands the bytes straight to the device, where the
-  // fused u8 front-end normalizes in VMEM at a quarter of the
-  // host->device traffic (ops/pallas_fir_mxu)
+  // u8 front-end normalizes at a quarter of the host->device traffic
   std::queue<std::vector<uint8_t>> queue;
   std::mutex mu;
   std::condition_variable cv_space, cv_data;

@@ -1,5 +1,5 @@
 """Long-capture demo: stream a >=60 s synthetic FM capture through the
-receiver with O(chunk) memory (VERDICT r1 item 5; BASELINE.json's
+receiver with O(chunk) memory (BASELINE.json's
 pod-scale config names a 1-hour capture that the stacked outputs of
 ``Receiver.run`` would not hold).
 
@@ -28,27 +28,19 @@ def main(argv=None) -> int:
     ap.add_argument("--duration", type=float, default=60.0)
     ap.add_argument("--chunk-blocks", type=int, default=64)
     ap.add_argument("--out", default="/tmp/long_capture.pcm")
-    ap.add_argument("--cpu", action="store_true",
-                    help="pin to CPU (skip the accelerator probe)")
+    ap.add_argument("--cpu", action="store_true", help="pin to CPU")
     a = ap.parse_args(argv)
 
     import jax
     if a.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        from sdr_tpu.utils.device import accelerator_healthy
-        if not os.environ.get("SDR_TPU_NO_PROBE") and \
-                not accelerator_healthy(attempts=2):
-            jax.config.update("jax_platforms", "cpu")
-            print("# accelerator unreachable; running on CPU",
-                  file=sys.stderr)
 
     import numpy as np
 
-    from sdr_tpu import config as cfg
-    from sdr_tpu.models.receiver import Receiver
-    from sdr_tpu.utils import synth
-    from sdr_tpu.io import pcm_quantize
+    from sdr_fm import config as cfg
+    from sdr_fm.models.receiver import Receiver
+    from sdr_fm.utils import synth
+    from sdr_fm.io import pcm_quantize
 
     mc = cfg.get_mode_config(0)
     bs = mc.default_block_size(False)

@@ -1,4 +1,4 @@
-"""Characterize time-shard stereo error vs overlap length (VERDICT r1 #8).
+"""Characterize time-shard stereo error vs overlap length.
 
 The time-sharded receiver re-locks each shard's PLL during a discarded
 input overlap (docs/DESIGN.md §3); the linear arms are bit-exact for any
@@ -28,10 +28,10 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from sdr_tpu import config as cfg  # noqa: E402
-from sdr_tpu.models import receiver as trx  # noqa: E402
-from sdr_tpu.parallel import time_shard  # noqa: E402
-from sdr_tpu.utils import synth  # noqa: E402
+from sdr_fm import config as cfg  # noqa: E402
+from sdr_fm.models import receiver as trx  # noqa: E402
+from sdr_fm.parallel import time_shard  # noqa: E402
+from sdr_fm.utils import synth  # noqa: E402
 
 
 def main() -> int:

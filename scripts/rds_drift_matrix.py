@@ -1,4 +1,4 @@
-"""Long-form +-50 ppm clock-drift demonstration (VERDICT r2 #5).
+"""Long-form +-50 ppm clock-drift demonstration.
 
 At 50 ppm the transmit symbol clock slips one full symbol (and flips the
 Manchester pairing parity, killing any fixed-phase decoder) about 8.4 s
@@ -25,10 +25,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from sdr_tpu import config as cfg  # noqa: E402
-from sdr_tpu.models import rds_decode  # noqa: E402
-from sdr_tpu.models.receiver import Receiver  # noqa: E402
-from sdr_tpu.utils import metrics, synth  # noqa: E402
+from sdr_fm import config as cfg  # noqa: E402
+from sdr_fm.models import rds_decode  # noqa: E402
+from sdr_fm.models.receiver import Receiver  # noqa: E402
+from sdr_fm.utils import metrics, synth  # noqa: E402
 
 DURATION_S = 9.0
 NOISE = 0.1

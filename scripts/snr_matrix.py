@@ -1,4 +1,4 @@
-"""SNR robustness matrix (VERDICT r1 #6; SURVEY.md §4.3-4.4).
+"""SNR robustness matrix (SURVEY.md §4.3-4.4).
 
 Sweeps input noise over a range of levels and measures, per level:
 stereo separation (L and R), mono tone SNR, and RDS info-word accuracy
@@ -23,10 +23,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from sdr_tpu import config as cfg  # noqa: E402
-from sdr_tpu.models import rds_decode, rds_groups  # noqa: E402
-from sdr_tpu.models.receiver import Receiver  # noqa: E402
-from sdr_tpu.utils import metrics, synth  # noqa: E402
+from sdr_fm import config as cfg  # noqa: E402
+from sdr_fm.models import rds_decode, rds_groups  # noqa: E402
+from sdr_fm.models.receiver import Receiver  # noqa: E402
+from sdr_fm.utils import metrics, synth  # noqa: E402
 
 LEVELS = (0.0, 0.02, 0.05, 0.1, 0.2, 0.4, 0.5, 0.63)
 TONE_L, TONE_R = 800.0, 1500.0
@@ -35,8 +35,8 @@ TONE_L, TONE_R = 800.0, 1500.0
 def run_level(noise_std: float, duration_s: float = 1.2,
               seed: int = 3) -> dict:
     mc = cfg.get_mode_config(0)
-    station = synth.StationConfig(pi=0x54B1, pty=9, ps="TPU8 FM ",
-                                  radiotext="HELLO TPU!", tp=True)
+    station = synth.StationConfig(pi=0x54B1, pty=9, ps="JAX8 FM ",
+                                  radiotext="HELLO JAX!", tp=True)
     res = synth.synthesize_fm(duration_s=duration_s, mode=0, seed=seed,
                               tone_l=TONE_L, tone_r=TONE_R,
                               with_rds=True, noise_std=noise_std,
@@ -77,7 +77,7 @@ def run_level(noise_std: float, duration_s: float = 1.2,
             "frames": len(dec.frames.matches),
             "word_accuracy": round(hits / max(total, 1), 4),
             "pi_ok": st.pi == 0x54B1,
-            "ps_ok": st.ps_name == "TPU8 FM ",
+            "ps_ok": st.ps_name == "JAX8 FM ",
         }
         if algo == "robust_ec":
             row[f"rds_{algo}"]["corrected"] = dec.n_corrected

@@ -8,11 +8,11 @@ channelization into the channel-parallel batch.
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models import rds_decode
-from sdr_tpu.models import receiver as trx
-from sdr_tpu.models.channelizer import Channelizer
-from sdr_tpu.utils import metrics, synth
+from sdr_fm import config as cfg
+from sdr_fm.models import rds_decode
+from sdr_fm.models import receiver as trx
+from sdr_fm.models.channelizer import Channelizer
+from sdr_fm.utils import metrics, synth
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +67,7 @@ class TestWidebandCli:
         wideband.iq_u8.tofile(p)
         prefix = str(tmp_path / "st")
         r = subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", "--mode", "0", "--stereo",
+            [sys.executable, "-m", "sdr_fm.cli", "--mode", "0", "--stereo",
              "--rds", "--wideband", "9600000",
              "--offsets=-1500000,2000000", str(p), "--wav", "-o", prefix],
             capture_output=True, timeout=600,

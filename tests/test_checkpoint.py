@@ -4,10 +4,10 @@ uninterrupted streaming (SURVEY.md §5 contract)."""
 import numpy as np
 import pytest
 
-from sdr_tpu import checkpoint
-from sdr_tpu import config as cfg
-from sdr_tpu.models import receiver as trx
-from sdr_tpu.utils import synth
+from sdr_fm import checkpoint
+from sdr_fm import config as cfg
+from sdr_fm.models import receiver as trx
+from sdr_fm.utils import synth
 
 
 class TestNpzRoundtrip:
@@ -72,7 +72,7 @@ class TestNpzRoundtrip:
 
 
 class TestInputDtypeContract:
-    """The u8/float state-dtype contract must fail LOUDLY (VERDICT r4 #4):
+    """The u8/float state-dtype contract must fail LOUDLY:
     resuming a float-produced checkpoint with raw-u8 input would silently
     quantize the carried RF tail to the nearest 1/128."""
 

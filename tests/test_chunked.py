@@ -1,5 +1,5 @@
 """Chunk-streaming long captures: device/host memory O(chunk), outputs
-bit-identical to the stacked paths (VERDICT r1 item 5; BASELINE.json's
+bit-identical to the stacked paths (BASELINE.json's
 pod-scale config names a 1-hour capture that the stacked outputs of
 ``Receiver.run`` / ``time_sharded_receive`` would not hold).
 """
@@ -10,10 +10,10 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models.receiver import Receiver
-from sdr_tpu.parallel import time_shard
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm.models.receiver import Receiver
+from sdr_fm.parallel import time_shard
+from sdr_fm.utils import synth
 
 
 @pytest.fixture(scope="module")

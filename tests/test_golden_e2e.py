@@ -8,9 +8,9 @@ audio samples and frame-synced RDS bits.
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import receiver
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm.golden import receiver
+from sdr_fm.utils import synth
 
 
 def _tone_power(x: np.ndarray, fs: float, f: float, bw: float = 60.0):
@@ -73,7 +73,7 @@ class TestRds:
         sent = {tuple(w) for g in synth_mode0.rds_info_bits for w in g}
         hits = 0
         # decode the full symbol stream in one pass with the robust CDR
-        from sdr_tpu.golden import rds as grds
+        from sdr_fm.golden import rds as grds
         sym = np.concatenate([o.rds_symbols for o in outs
                               if o.rds_symbols is not None])
         manch, _, _ = grds.cdr_robust(sym, mc.rds.sps)

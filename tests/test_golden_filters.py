@@ -8,7 +8,7 @@ polyphase resampler must equal brute-force upsample->filter->downsample.
 import numpy as np
 import pytest
 
-from sdr_tpu.golden import filters
+from sdr_fm.golden import filters
 
 
 def _stream(x, fn, state, block):

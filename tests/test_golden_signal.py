@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sdr_tpu.golden import demod, pll, rds
-from sdr_tpu.utils import synth
+from sdr_fm.golden import demod, pll, rds
+from sdr_fm.utils import synth
 
 
 class TestDemod:
@@ -142,7 +142,7 @@ class TestCdrFuzz:
     soft-symbol streams (the reference CDR's restart loop is the risk)."""
 
     def test_reference_cdr_on_noise(self, rng):
-        from sdr_tpu.golden import rds as grds
+        from sdr_fm.golden import rds as grds
         st = grds.CdrState()
         for b in range(4):
             x = rng.normal(size=26 * 40) * 0.6
@@ -150,7 +150,7 @@ class TestCdrFuzz:
             assert np.isfinite(bits).all() and len(bits) <= 26 * 40
 
     def test_robust_and_tracking_on_noise_and_extremes(self, rng):
-        from sdr_tpu.golden import rds as grds
+        from sdr_fm.golden import rds as grds
         for x in [rng.normal(size=26 * 100),
                   np.zeros(26 * 100),
                   np.full(26 * 100, 5.0),

@@ -1,15 +1,18 @@
 """IO layer semantics + CLI end-to-end (file in, PCM/wav out, RDS report)."""
 
 import io as pyio
+import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu import io as sio
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm import io as sio
+from sdr_fm.utils import synth
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class TestIo:
@@ -69,11 +72,10 @@ class TestCli:
 
     def _run(self, args):
         return subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", *args],
+            [sys.executable, "-m", "sdr_fm.cli", *args],
             capture_output=True, timeout=600,
             env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-                 "PYTHONPATH": "/root/repo",
-                 "HOME": "/root"})
+                 "PYTHONPATH": REPO, "HOME": os.environ.get("HOME", REPO)})
 
     def test_mono_pcm_stdout(self, raw_file):
         path, _ = raw_file
@@ -120,15 +122,6 @@ class TestCli:
             deep.stderr.decode()
         assert base.stdout == deep.stdout
         assert len(base.stdout) > 0
-
-    def test_pallas_flag_runs_on_cpu(self, raw_file):
-        """--pallas auto-selects the interpreter off-TPU, so the flag
-        works on every backend."""
-        path, _ = raw_file
-        r = self._run(["--mode", "0", path, "--pallas",
-                       "--block-size", "115200"])
-        assert r.returncode == 0, r.stderr.decode()
-        assert len(np.frombuffer(r.stdout, dtype=np.int16)) > 0
 
     def test_stereo_wav_and_rds(self, raw_file, tmp_path):
         path, res = raw_file

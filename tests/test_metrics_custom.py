@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models import receiver as trx
-from sdr_tpu.utils import metrics, synth
+from sdr_fm import config as cfg
+from sdr_fm.models import receiver as trx
+from sdr_fm.utils import metrics, synth
 
 
 class TestMetrics:
@@ -33,11 +33,11 @@ class TestMetrics:
 
 class TestOneCallApi:
     def test_receive_from_array_and_file(self, tmp_path):
-        import sdr_tpu
+        import sdr_fm
 
         res = synth.synthesize_fm(duration_s=0.25, mode=0, seed=26,
                                   with_rds=True)
-        out = sdr_tpu.receive(res.iq_u8, mode=0)
+        out = sdr_fm.receive(res.iq_u8, mode=0)
         assert out.audio_fs == 48000.0
         sep_l, _ = metrics.stereo_separation_db(out.left, out.right,
                                                 out.audio_fs, 800.0, 1500.0)
@@ -48,7 +48,7 @@ class TestOneCallApi:
 
         p = str(tmp_path / "cap.raw")
         res.iq_u8.tofile(p)
-        out2 = sdr_tpu.receive(p, mode=0, stereo=False, rds=False)
+        out2 = sdr_fm.receive(p, mode=0, stereo=False, rds=False)
         assert out2.left is None and len(out2.rds_frames) == 0
         # block sizes differ between rds/non-rds runs: compare the common
         # prefix (same samples, different end-of-file truncation)
@@ -56,20 +56,20 @@ class TestOneCallApi:
         np.testing.assert_allclose(out2.mono[:n], out.mono[:n], atol=1e-6)
 
     def test_receive_handles_short_and_tiny_captures(self):
-        import sdr_tpu
+        import sdr_fm
 
         res = synth.synthesize_fm(duration_s=0.06, mode=0, seed=2,
                                   with_rds=False)
         # shorter than one default block: still demodulates via a smaller
         # block + tail
-        out = sdr_tpu.receive(res.iq_u8, mode=0, rds=False)
+        out = sdr_fm.receive(res.iq_u8, mode=0, rds=False)
         mc = cfg.get_mode_config(0)
         gran = mc.if_block_multiple(False) * 2 * mc.rf_decim
         expect = len(res.iq_u8) // gran * gran // (2 * mc.rf_decim * 5)
         assert len(out.mono) == expect
         # sub-block-multiple capture: clear error, not empty output
         with pytest.raises(ValueError, match="shorter than one block"):
-            sdr_tpu.receive(res.iq_u8[:50], mode=0)
+            sdr_fm.receive(res.iq_u8[:50], mode=0)
 
 
 class TestCustomMode:

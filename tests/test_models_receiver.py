@@ -1,4 +1,4 @@
-"""TPU receiver (jitted JAX) vs golden numpy oracle.
+"""JAX receiver (jitted) vs golden numpy oracle.
 
 The rebuild's equivalent of the reference's "bit equivalence between the C++
 refactor and the Python model" gate (SURVEY.md §4): per-block tolerance
@@ -12,11 +12,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import receiver as grx
-from sdr_tpu.models import receiver as trx
-from sdr_tpu.models import rds_decode
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm.golden import receiver as grx
+from sdr_fm.models import receiver as trx
+from sdr_fm.models import rds_decode
+from sdr_fm.utils import synth
 
 
 @pytest.fixture(scope="module")
@@ -141,54 +141,6 @@ class TestU8Input:
         np.testing.assert_array_equal(np.asarray(out_u8.fm_demod),
                                       np.asarray(out_f32.fm_demod))
 
-
-    def test_pallas_mxu_frontend_branch_streaming(self):
-        """The TPU-default u8 front-end selection (mxu_fir +
-        pallas_frontend -> ops.pallas_fir_mxu.fir_frontend_u8_pallas_int)
-        through the FULL receiver DAG: per-block outputs match the XLA
-        bf16x selection at ULP level AND the state chain across blocks is
-        preserved (ADVICE r3: this branch had op-level tests only)."""
-        mc = cfg.get_mode_config(0)
-        bs = mc.default_block_size(with_rds=True)
-        res = synth.synthesize_fm(duration_s=0.1, mode=0, seed=9,
-                                  with_rds=True)
-        coeffs = trx.design_coeffs(mc)
-        sa = sb = trx.init_state(mc)
-        import jax
-        import jax.numpy as jnp
-        for b in range(2):
-            blk = jnp.asarray(res.iq_u8[b * bs:(b + 1) * bs])
-            oa, sa = trx.process_block(blk, coeffs, sa, mc, stereo=True,
-                                       with_rds=True, mxu_fir=True,
-                                       pallas_frontend=True)
-            ob, sb = trx.process_block(blk, coeffs, sb, mc, stereo=True,
-                                       with_rds=True, mxu_fir=True)
-            # identical weight-split bf16 math, different accumulation
-            # grouping: ULP-level, not bitwise
-            np.testing.assert_allclose(np.asarray(oa.left),
-                                       np.asarray(ob.left), atol=2e-4)
-            np.testing.assert_allclose(np.asarray(oa.rds_symbols),
-                                       np.asarray(ob.rds_symbols),
-                                       atol=2e-4)
-        # the carried RF state is raw-byte recoverable on both paths
-        np.testing.assert_array_equal(np.asarray(sa.rf_i),
-                                      np.asarray(sb.rf_i))
-        np.testing.assert_array_equal(np.asarray(sa.rf_q),
-                                      np.asarray(sb.rf_q))
-        # checkpoint round-trip restores the exact pytree for this branch
-        flat_a = jax.tree.leaves(sa)
-        rt = jax.tree.unflatten(jax.tree.structure(sa),
-                                [jnp.asarray(np.asarray(l))
-                                 for l in flat_a])
-        blk = jnp.asarray(res.iq_u8[2 * bs:3 * bs])
-        o1, _ = trx.process_block(blk, coeffs, sa, mc, stereo=True,
-                                  with_rds=True, mxu_fir=True,
-                                  pallas_frontend=True)
-        o2, _ = trx.process_block(blk, coeffs, rt, mc, stereo=True,
-                                  with_rds=True, mxu_fir=True,
-                                  pallas_frontend=True)
-        np.testing.assert_array_equal(np.asarray(o1.left),
-                                      np.asarray(o2.left))
 
 
 class TestChannelBatch:
@@ -326,13 +278,13 @@ class TestRdsEndToEnd:
         i_all = np.concatenate(si)[4000:]
         q_all = np.concatenate(sq)[4000:]
         sps = mc.rds.sps
-        from sdr_tpu.golden import rds as grds
+        from sdr_fm.golden import rds as grds
         _, phase, _ = grds.cdr_robust(i_all, sps)
         ei = np.mean(np.abs(i_all[phase::sps]))
         eq = np.mean(np.abs(q_all[phase::sps]))
         assert ei > 2.5 * eq, (ei, eq)
 
-    def test_tpu_chain_decodes_rds_frames(self, mode0_signal):
+    def test_jax_chain_decodes_rds_frames(self, mode0_signal):
         iq, res = mode0_signal
         mc = cfg.get_mode_config(0)
         rx = trx.Receiver(0, stereo=False, with_rds=True)

@@ -2,12 +2,11 @@
 
 Functional gate for SURVEY.md §2.3's communication-backend row: the
 channel-sharded receiver executes over a mesh spanning OS processes
-(jax.distributed + cross-process runtime — the same machinery a TPU pod
-uses over DCN), with the time-axis halo structurally confined to each
-process's local devices.  The timed ≥95%-efficiency measurement lives in
-scripts/multihost_scaling.py -> SCALING_r3.json (timing gates would flake
-in CI on this shared host; the efficiency artifact is produced offline,
-with the raw and contention-controlled numbers gated separately).
+(jax.distributed + cross-process runtime — the same machinery a
+multi-host deployment uses), with the time-axis halo structurally confined
+to each process's local devices.  The timed efficiency measurement lives
+in scripts/multihost_scaling.py (timing gates would flake in CI on a
+shared host).
 """
 
 import importlib.util
@@ -63,7 +62,7 @@ class TestMultiProcessMesh:
 
     def test_2proc_cross_process_halo(self):
         """The halo ppermute EXECUTED across the process boundary
-        (VERDICT r4 #3): mesh transposed so every time row spans both
+       : mesh transposed so every time row spans both
         processes, and the linear arms still bit-match a contiguous run
         — the correctness claim behind the 'halo stays on ICI' policy,
         now validated rather than assumed."""
@@ -79,7 +78,7 @@ class TestMultiProcessMesh:
 
     def test_2proc_time_axis_sharded_receiver(self):
         """The TIME-SHARDED receiver itself under jax.distributed
-        (VERDICT r2 #6): halo ppermute provably intra-process, and the
+       : halo ppermute provably intra-process, and the
         sharded outputs match a contiguous run of the same channel —
         fm_demod exactly, mono within the kept-region gate."""
         mod = _load()

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-native = pytest.importorskip("sdr_tpu.native")
+native = pytest.importorskip("sdr_fm.native")
 
 
 class TestConversions:
@@ -38,7 +38,7 @@ class TestBlockReader:
         np.testing.assert_allclose(np.concatenate(blocks), expected)
 
     def test_raw_mode_yields_bytes(self, tmp_path):
-        """raw=True (the CLI/TPU serving path) must hand back the exact
+        """raw=True (the CLI serving path) must hand back the exact
         file bytes as uint8 blocks for on-device normalization."""
         rng = np.random.default_rng(1)
         data = rng.integers(0, 256, 5 * 2048 + 7, dtype=np.uint8)

@@ -2,7 +2,7 @@
 
 This is the rebuild's version of the reference's "bit equivalence between
 the C++ refactor and the Python model" requirement (SURVEY.md section 4):
-every TPU primitive must match the numpy golden implementation within
+every JAX primitive must match the numpy golden implementation within
 float32 tolerance, streaming state included.
 """
 
@@ -12,14 +12,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sdr_tpu.golden import demod as gdemod
-from sdr_tpu.golden import filters as gfilt
-from sdr_tpu.golden import pll as gpll
-from sdr_tpu.golden import spectrum as gspec
-from sdr_tpu.ops import demod as jdemod
-from sdr_tpu.ops import fir as jfir
-from sdr_tpu.ops import pll as jpll
-from sdr_tpu.ops import spectrum as jspec
+from sdr_fm.golden import demod as gdemod
+from sdr_fm.golden import filters as gfilt
+from sdr_fm.golden import pll as gpll
+from sdr_fm.golden import spectrum as gspec
+from sdr_fm.ops import demod as jdemod
+from sdr_fm.ops import fir as jfir
+from sdr_fm.ops import pll as jpll
+from sdr_fm.ops import spectrum as jspec
 
 
 def _f32(x):
@@ -274,11 +274,24 @@ class TestSpectrum:
 
 
 class TestMxuFir:
-    """MXU banded-matmul FIR kernels (ops.fir.*_mm, DESIGN.md §2) vs their
-    conv/gather siblings: same math, different unit.  States must be
-    EXACTLY equal (they are input slices); outputs within f32 accumulation
-    noise.  These kernels are the TPU default (receiver mxu_fir) and the
-    source of the round-3 serving-regime speedup."""
+    """Banded-matmul FIR kernels (ops.fir.*_mm, DESIGN.md §2) vs their
+    conv/gather siblings: same math, different formulation.  States must
+    be EXACTLY equal (they are input slices); outputs within f32
+    accumulation noise.  These kernels are the GPU default (receiver
+    mxu_fir)."""
+
+    def test_split_bf16_keeps_16_bits(self, rng):
+        """hi is exactly bf16, hi + lo carries ~16 mantissa bits, and lo
+        survives under jit with the weights as a runtime argument."""
+        w = _f32(rng.normal(size=4096) * 10.0 ** rng.uniform(-6, 0, 4096))
+        hi, lo = jax.jit(jfir.split_bf16)(w)
+        assert hi.dtype == lo.dtype == jnp.bfloat16
+        w64 = np.asarray(w, np.float64)
+        hi64 = np.asarray(hi.astype(jnp.float32), np.float64)
+        lo64 = np.asarray(lo.astype(jnp.float32), np.float64)
+        assert np.all(np.abs(w64 - hi64) <= np.abs(w64) * 2.0 ** -8)
+        assert np.count_nonzero(lo64) > 0.9 * w.size
+        assert np.all(np.abs(w64 - hi64 - lo64) <= np.abs(w64) * 2.0 ** -16)
 
     @pytest.mark.parametrize("n,k,d,batch", [
         (5760, 151, 10, ()),          # mode-0 RF shape
@@ -364,9 +377,9 @@ class TestMxuFir:
     def test_receiver_u8_bf16_frontend_matches_f32_mxu(self):
         """Full mode-0 stereo+RDS block: raw-u8 mxu DAG (bf16 front-end)
         vs the same DAG fed pre-normalized f32 (f32 HIGH front-end)."""
-        from sdr_tpu import config as cfg
-        from sdr_tpu.models import receiver as rx
-        from sdr_tpu.utils import synth
+        from sdr_fm import config as cfg
+        from sdr_fm.models import receiver as rx
+        from sdr_fm.utils import synth
         mc = cfg.get_mode_config(0)
         bs = mc.default_block_size(True)
         res = synth.synthesize_fm(duration_s=0.15, mode=0, with_rds=True,
@@ -436,9 +449,9 @@ class TestMxuFir:
 
     def test_receiver_mxu_matches_conv_dag(self, rng):
         """Full mode-0 stereo+RDS block: mxu_fir DAG vs conv DAG."""
-        from sdr_tpu import config as cfg
-        from sdr_tpu.models import receiver as rx
-        from sdr_tpu.utils import synth
+        from sdr_fm import config as cfg
+        from sdr_fm.models import receiver as rx
+        from sdr_fm.utils import synth
         mc = cfg.get_mode_config(0)
         bs = mc.default_block_size(True)
         res = synth.synthesize_fm(duration_s=0.15, mode=0, with_rds=True,

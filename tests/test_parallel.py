@@ -13,10 +13,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models import receiver as trx
-from sdr_tpu.parallel import channel_sharded_run, time_sharded_receive
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm.models import receiver as trx
+from sdr_fm.parallel import channel_sharded_run, time_sharded_receive
+from sdr_fm.utils import synth
 
 
 @pytest.fixture(scope="module")
@@ -28,13 +28,13 @@ def mesh8():
 
 class TestMultihostHelpers:
     def test_make_mesh_layout(self):
-        from sdr_tpu.parallel import multihost
+        from sdr_fm.parallel import multihost
         mesh = multihost.make_mesh(time_per_host=4)
         assert mesh.shape == {"ch": 2, "time": 4}
 
     def test_mesh_runs_2d_receive(self):
         """The multihost-policy mesh drives the composed 2D program."""
-        from sdr_tpu.parallel import multihost
+        from sdr_fm.parallel import multihost
         mesh = multihost.make_mesh(time_per_host=4)
         mc = cfg.get_mode_config(0)
         mult = mc.if_block_multiple(False)
@@ -128,6 +128,81 @@ class TestChannelParallel:
         assert len(shard_devs) == 8
 
 
+class TestPlacement:
+    """Host input goes straight into its sharding: one shard per device,
+    never a full copy staged on the first device."""
+
+    def test_put_sharded_reads_only_shards(self, mesh8):
+        from jax.sharding import NamedSharding
+
+        from sdr_fm.parallel.channel import put_sharded
+        host = np.arange(8 * 3 * 5, dtype=np.float32).reshape(8, 3, 5)
+        reads = []
+
+        class Recording(np.ndarray):
+            def __getitem__(self, idx):
+                reads.append(idx)
+                return np.asarray(self).__getitem__(idx)
+
+        arr = put_sharded(host.view(Recording),
+                          NamedSharding(mesh8, P("d")))
+        assert len(reads) == 8
+        assert all(np.asarray(host[i]).size * 8 == host.size
+                   for i in reads)
+        shards = arr.addressable_shards
+        assert len({s.device for s in shards}) == 8
+        for s in shards:
+            assert s.data.shape == (1, 3, 5)
+            np.testing.assert_array_equal(np.asarray(s.data),
+                                          host[s.index])
+
+    def _record_puts(self, monkeypatch, module):
+        puts = []
+        real = module.put_sharded
+
+        def wrapped(host, sharding):
+            puts.append((type(host), host.shape, sharding))
+            return real(host, sharding)
+
+        monkeypatch.setattr(module, "put_sharded", wrapped)
+        return puts
+
+    def test_channel_sharded_run_places_one_shard_per_device(
+            self, mesh8, monkeypatch):
+        from sdr_fm.parallel import channel
+        puts = self._record_puts(monkeypatch, channel)
+        mc = cfg.get_mode_config(0)
+        bs = mc.default_block_size()
+        iq = np.random.default_rng(1).integers(0, 256, (16, 2 * bs),
+                                               dtype=np.uint8)
+        outs, state = channel_sharded_run(iq, mesh8, 0, stereo=True,
+                                          axis="d")
+        (kind, shape, sharding), = puts
+        assert kind is np.ndarray and shape == (2, 16, bs)
+        assert sharding.spec == P(None, "d", None)
+        for leaf in (outs.left, state.rf_i, state.pilot_pll.phase_est):
+            shards = leaf.addressable_shards
+            assert len({s.device for s in shards}) == 8
+            assert all(s.data.shape[list(leaf.shape).index(16)] == 2
+                       for s in shards)
+
+    def test_time_sharded_receive_places_one_shard_per_device(
+            self, mesh8, monkeypatch):
+        from sdr_fm.parallel import time_shard
+        puts = self._record_puts(monkeypatch, time_shard)
+        mc = cfg.get_mode_config(0)
+        mult = mc.if_block_multiple(False)
+        seg = 3 * 40 * mult * 2 * mc.rf_decim
+        iq = np.random.default_rng(2).uniform(-1, 1, 8 * seg)
+        outs = time_sharded_receive(iq, mesh8, 0, stereo=False,
+                                    overlap_if=40 * mult,
+                                    block_if=40 * mult, axis="d")
+        (kind, shape, sharding), = puts
+        assert kind is np.ndarray and shape == (8 * seg,)
+        assert sharding.spec == P("d")
+        assert len({s.device for s in outs.mono.addressable_shards}) == 8
+
+
 class TestTimeSharded:
     @pytest.fixture(scope="class")
     def recording(self):
@@ -136,7 +211,7 @@ class TestTimeSharded:
         return synth.u8_to_float(res.iq_u8), res
 
     def _trim(self, iq, mc, s, with_rds):
-        from sdr_tpu.parallel.time_shard import default_block_if
+        from sdr_fm.parallel.time_shard import default_block_if
         gran = default_block_if(mc, with_rds) * 2 * mc.rf_decim
         seg = (iq.shape[-1] // s) // gran * gran
         return iq[: seg * s]
@@ -222,41 +297,9 @@ class TestTimeSharded:
                                    np.asarray(ref.mono).reshape(-1),
                                    atol=1e-5)
 
-    def test_pallas_halo_matches_ppermute(self, mesh8, recording):
-        """The hand-written RDMA halo kernel is drop-in equivalent to the
-        XLA ppermute collective."""
-        iq, _ = recording
-        mc = cfg.get_mode_config(0)
-        iq = self._trim(iq, mc, 8, False)
-        a = time_sharded_receive(iq, mesh8, 0, stereo=False,
-                                 with_rds=False, axis="d",
-                                 halo_impl="ppermute")
-        b = time_sharded_receive(iq, mesh8, 0, stereo=False,
-                                 with_rds=False, axis="d",
-                                 halo_impl="pallas")
-        np.testing.assert_array_equal(np.asarray(a.fm_demod),
-                                      np.asarray(b.fm_demod))
-        np.testing.assert_array_equal(np.asarray(a.mono),
-                                      np.asarray(b.mono))
-
-    def test_pallas_halo_rejects_2d_mesh(self, recording):
-        """JAX's dma_start supports LOGICAL device ids on 1D meshes only;
-        the pallas halo must refuse a composed mesh loudly rather than
-        corrupt cross-row transfers (use ppermute there)."""
-        iq, _ = recording
-        mc = cfg.get_mode_config(0)
-        iq1 = self._trim(iq, mc, 4, False)
-        iqc = np.stack([iq1, iq1 * 0.5])
-        mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
-                    ("ch", "time"))
-        with pytest.raises(NotImplementedError, match="1D meshes"):
-            time_sharded_receive(iqc, mesh, 0, stereo=False, with_rds=False,
-                                 axis="time", batch_axis="ch",
-                                 halo_impl="pallas")
-
     def test_rds_symbols_survive_sharding(self, mesh8, recording):
         """Time-sharded soft symbols still decode every RDS frame."""
-        from sdr_tpu.models import rds_decode
+        from sdr_fm.models import rds_decode
         iq, res = recording
         mc = cfg.get_mode_config(0)
         iq = self._trim(iq, mc, 8, True)

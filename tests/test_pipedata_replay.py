@@ -1,4 +1,4 @@
-"""Replay the reference's captured pipeline log (VERDICT r2 "missing" #1).
+"""Replay the reference's captured pipeline log.
 
 ``data/data/pipeData.txt`` is the only artifact in the reference repo
 produced by its ACTUAL runs: a stderr capture of the real-time pipeline
@@ -25,7 +25,7 @@ import sys
 import numpy as np
 import pytest
 
-from sdr_tpu.utils import pipedata
+from sdr_fm.utils import pipedata
 
 pytestmark = pytest.mark.skipif(
     not os.path.exists(pipedata.PIPEDATA_PATH),
@@ -72,9 +72,9 @@ class TestGoldenVsExecutedUpstream:
         ref = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(ref)
 
-        from sdr_tpu import config as cfg
-        from sdr_tpu.golden import demod as gdemod
-        from sdr_tpu.golden import filters as gfilt
+        from sdr_fm import config as cfg
+        from sdr_fm.golden import demod as gdemod
+        from sdr_fm.golden import filters as gfilt
 
         mc = cfg.get_mode_config(0)
         h = gfilt.lowpass_taps(mc.rf_taps, mc.rf_fs, cfg.RF_FC_HZ)
@@ -131,8 +131,8 @@ class TestBinaryOnRealCapture:
         PARITY.md.  The in-range region is computed from our GOLDEN model,
         not from either binary's output, so the mask cannot hide a real
         mismatch."""
-        from sdr_tpu import config as cfg
-        from sdr_tpu.golden import receiver as gr
+        from sdr_fm import config as cfg
+        from sdr_fm.golden import receiver as gr
 
         raw = tmp_path / "pipedata.raw"
         iq = np.concatenate(capture.blocks_u8)
@@ -145,7 +145,7 @@ class TestBinaryOnRealCapture:
         assert len(ref_pcm) > 0, ref.stderr.decode()[:300]
 
         ours = subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", "--mode", "0",
+            [sys.executable, "-m", "sdr_fm.cli", "--mode", "0",
              "--block-size", "102400", str(raw)],
             capture_output=True, timeout=500,
             env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",

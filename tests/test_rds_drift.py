@@ -1,4 +1,4 @@
-"""Clock-drift tolerance of the RDS symbol-clock recovery (VERDICT r2 #5).
+"""Clock-drift tolerance of the RDS symbol-clock recovery.
 
 Real transmit oscillators drift ppm-scale against the receiver's sampling
 grid; at 50 ppm the symbol phase walks one full sample every ~0.32 s
@@ -25,11 +25,11 @@ clock together, like one crystal — utils/synth.py clock_ppm) and gate:
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import rds as grds
-from sdr_tpu.models import rds_decode
-from sdr_tpu.models.receiver import Receiver
-from sdr_tpu.utils import metrics, synth
+from sdr_fm import config as cfg
+from sdr_fm.golden import rds as grds
+from sdr_fm.models import rds_decode
+from sdr_fm.models.receiver import Receiver
+from sdr_fm.utils import metrics, synth
 
 PPM = 400.0
 WINDOW = 256
@@ -156,7 +156,7 @@ class TestDriftCli:
         raw = tmp_path / "drift.raw"
         res.iq_u8.tofile(raw)
         r = subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", "--mode", "0", "--stereo",
+            [sys.executable, "-m", "sdr_fm.cli", "--mode", "0", "--stereo",
              "--rds", "--rds-algo", "tracking", str(raw),
              "-o", str(tmp_path / "out.pcm")],
             capture_output=True, timeout=600,

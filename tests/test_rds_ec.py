@@ -10,8 +10,8 @@ synchronized, exact-match acquisition unchanged.
 import numpy as np
 import pytest
 
-from sdr_tpu.golden import rds as grds
-from sdr_tpu.utils import synth
+from sdr_fm.golden import rds as grds
+from sdr_fm.utils import synth
 
 
 def _group_bits(rng, n_groups=8):
@@ -165,8 +165,8 @@ class TestStreamingDecoderEc:
     def test_corrected_frames_counted_and_resumed(self, tmp_path):
         """The streaming decoder recovers corrupted frames, counts them,
         and the EC carry round-trips through state_dict."""
-        from sdr_tpu import config as cfg
-        from sdr_tpu.models import rds_decode
+        from sdr_fm import config as cfg
+        from sdr_fm.models import rds_decode
         sps = cfg.get_mode_config(0).rds.sps
         rng = np.random.default_rng(6)
         bits, blocks = _group_bits(rng, n_groups=10)
@@ -193,10 +193,10 @@ class TestStreamingDecoderEc:
         PI repeated in block 3 under offset C') decodes to the same
         station info — closing the ground-truth gap on the decoder's
         B-group path (it was only ever fed version A)."""
-        from sdr_tpu import config as cfg
-        from sdr_tpu.models import rds_decode
-        st = synth.StationConfig(pi=0x54B1, pty=9, ps="TPU8 FM ",
-                                 radiotext="HELLO TPU!", tp=True)
+        from sdr_fm import config as cfg
+        from sdr_fm.models import rds_decode
+        st = synth.StationConfig(pi=0x54B1, pty=9, ps="JAX8 FM ",
+                                 radiotext="HELLO JAX!", tp=True)
         _, framed = synth.rds_encode_station(st, n_groups=24,
                                              version_b=True)
         sps = cfg.get_mode_config(0).rds.sps
@@ -204,13 +204,13 @@ class TestStreamingDecoderEc:
         dec.phase, dec.parity = 0, 0
         dec._advance(synth.diff_encode(framed))
         si = dec.station_info()
-        assert si.pi == 0x54B1 and si.ps_name == "TPU8 FM "
-        assert si.radiotext == "HELLO TPU!"
+        assert si.pi == 0x54B1 and si.ps_name == "JAX8 FM "
+        assert si.radiotext == "HELLO JAX!"
         assert si.group_counts.get("0B") and si.group_counts.get("2B")
 
     def test_ec_off_matches_reference_behavior(self):
-        from sdr_tpu import config as cfg
-        from sdr_tpu.models import rds_decode
+        from sdr_fm import config as cfg
+        from sdr_fm.models import rds_decode
         sps = cfg.get_mode_config(0).rds.sps
         rng = np.random.default_rng(7)
         bits, blocks = _group_bits(rng, n_groups=6)

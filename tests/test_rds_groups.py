@@ -4,17 +4,17 @@ Covers the protocol layer above the reference's frame sync
 (model/fmSupportLib.py:30-100 stops at offset identification): group
 assembly from matched blocks, PI/PTY/TP voting, PS name and RadioText
 reconstruction — at the bit level and through the full synthesized-station
--> TPU receiver -> decode chain.
+-> JAX receiver -> decode chain.
 """
 
 import numpy as np
 
-from sdr_tpu.golden import rds as grds
-from sdr_tpu.models import rds_decode, rds_groups
-from sdr_tpu.utils import synth
+from sdr_fm.golden import rds as grds
+from sdr_fm.models import rds_decode, rds_groups
+from sdr_fm.utils import synth
 
-STATION = synth.StationConfig(pi=0x54B1, pty=9, ps="TPU8 FM ",
-                              radiotext="HELLO TPU!", tp=True)
+STATION = synth.StationConfig(pi=0x54B1, pty=9, ps="JAX8 FM ",
+                              radiotext="HELLO JAX!", tp=True)
 
 
 class TestBitLevel:
@@ -29,8 +29,8 @@ class TestBitLevel:
         assert st.pi == STATION.pi
         assert st.pty == STATION.pty
         assert st.tp is True
-        assert st.ps_name == "TPU8 FM "
-        assert st.radiotext == "HELLO TPU!"
+        assert st.ps_name == "JAX8 FM "
+        assert st.radiotext == "HELLO JAX!"
         assert st.ps_seen.all()
         # 12-char padded text = 3 RadioText segments
         assert st.rt_seen[:3].all() and not st.rt_seen[3:].any()
@@ -41,7 +41,7 @@ class TestBitLevel:
         _, framed = synth.rds_encode_station(STATION, n_groups=12)
         st = rds_groups.decode_station(rds_groups.assemble_groups(
             grds.frame_sync(framed[137:]), framed[137:]))
-        assert st.pi == STATION.pi and st.ps_name == "TPU8 FM "
+        assert st.pi == STATION.pi and st.ps_name == "JAX8 FM "
 
     def test_version_b_group_with_c_prime_offset(self):
         """Version B groups (offset C') carry PI in block C and 2 RadioText
@@ -69,10 +69,10 @@ class TestBitLevel:
 
 class TestEndToEnd:
     def test_full_chain_recovers_programme_info(self):
-        """Synthesized station -> TPU receiver -> PS name + RadioText."""
+        """Synthesized station -> JAX receiver -> PS name + RadioText."""
         import jax
-        from sdr_tpu import get_mode_config
-        from sdr_tpu.models.receiver import Receiver
+        from sdr_fm import get_mode_config
+        from sdr_fm.models.receiver import Receiver
 
         mc = get_mode_config(0)
         res = synth.synthesize_fm(duration_s=1.2, mode=0, seed=3,
@@ -86,5 +86,5 @@ class TestEndToEnd:
         assert st.n_groups >= 8
         assert st.pi == STATION.pi
         assert st.pty == STATION.pty
-        assert st.ps_name == "TPU8 FM "
-        assert st.radiotext == "HELLO TPU!"
+        assert st.ps_name == "JAX8 FM "
+        assert st.radiotext == "HELLO JAX!"

@@ -10,19 +10,19 @@ accumulating the whole symbol stream to EOF.
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models import rds_decode, rds_groups
-from sdr_tpu.utils import synth
+from sdr_fm import config as cfg
+from sdr_fm.models import rds_decode, rds_groups
+from sdr_fm.utils import synth
 
-STATION = synth.StationConfig(pi=0x54B1, pty=9, ps="TPU8 FM ",
-                              radiotext="HELLO TPU!", tp=True)
+STATION = synth.StationConfig(pi=0x54B1, pty=9, ps="JAX8 FM ",
+                              radiotext="HELLO JAX!", tp=True)
 
 
 @pytest.fixture(scope="module")
 def symbol_blocks():
-    """Per-block RRC soft symbols from the TPU receiver on a synthesized
+    """Per-block RRC soft symbols from the JAX receiver on a synthesized
     station: (n_blocks, sym_len) float."""
-    from sdr_tpu.models.receiver import Receiver
+    from sdr_fm.models.receiver import Receiver
 
     res = synth.synthesize_fm(duration_s=1.2, mode=0, seed=3,
                               with_rds=True, noise_std=0.02,
@@ -75,8 +75,8 @@ class TestStreamingEquivalence:
         assert matches == frames.matches
         st = dec.station_info()
         assert st.pi == STATION.pi
-        assert st.ps_name == "TPU8 FM "
-        assert st.radiotext == "HELLO TPU!"
+        assert st.ps_name == "JAX8 FM "
+        assert st.radiotext == "HELLO JAX!"
 
     @pytest.mark.parametrize("algo", ["robust", "reference"])
     def test_block_memory_bound(self, symbol_blocks, algo):
@@ -98,8 +98,8 @@ class TestResume:
         frame stream and programme info EXACTLY."""
         import jax
 
-        from sdr_tpu import checkpoint
-        from sdr_tpu.models import receiver as rx
+        from sdr_fm import checkpoint
+        from sdr_fm.models import receiver as rx
 
         sps = cfg.get_mode_config(0).rds.sps
         ref_dec = rds_decode.StreamingRdsDecoder(sps, algo=algo)
@@ -136,7 +136,7 @@ class TestCliResume:
         the single uninterrupted run."""
         import re
 
-        from sdr_tpu import cli
+        from sdr_fm import cli
 
         res = synth.synthesize_fm(duration_s=1.0, mode=0, seed=3,
                                   with_rds=True, rds_station=STATION)
@@ -173,7 +173,7 @@ class TestCliResume:
         fw, pi_w, ps_w = stats(err_whole)
         fr, pi_r, ps_r = stats(err_resumed)
         assert fr == fw and pi_r == pi_w == f"{STATION.pi:04X}"
-        assert ps_r == ps_w == "TPU8 FM "
+        assert ps_r == ps_w == "JAX8 FM "
         # audio continues bit-exactly too (device-state resume contract)
         a = (tmp_path / "a.pcm").read_bytes()
         b = ((tmp_path / "b1.pcm").read_bytes()

@@ -28,11 +28,11 @@ def ref():
     return mod
 
 
-from sdr_tpu.golden import demod as gdemod
-from sdr_tpu.golden import filters as gfilt
-from sdr_tpu.golden import pll as gpll
-from sdr_tpu.golden import rds as grds
-from sdr_tpu.golden import spectrum as gspec
+from sdr_fm.golden import demod as gdemod
+from sdr_fm.golden import filters as gfilt
+from sdr_fm.golden import pll as gpll
+from sdr_fm.golden import rds as grds
+from sdr_fm.golden import spectrum as gspec
 
 
 class TestCoefficients:
@@ -141,7 +141,7 @@ class TestReferenceBinary:
         import subprocess
         import sys
 
-        from sdr_tpu.utils import synth
+        from sdr_fm.utils import synth
         res = synth.synthesize_fm(duration_s=0.25, mode=0, seed=52)
         raw = tmp_path / "x.raw"
         res.iq_u8.tofile(raw)
@@ -154,7 +154,7 @@ class TestReferenceBinary:
         assert len(ref_pcm) > 0, ref.stderr.decode()[:300]
 
         ours = subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", "--mode", "0", str(raw)],
+            [sys.executable, "-m", "sdr_fm.cli", "--mode", "0", str(raw)],
             capture_output=True, timeout=500,
             env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
                  "PYTHONPATH": "/root/repo", "HOME": "/root"})
@@ -178,7 +178,7 @@ class TestReferenceBinary:
         import subprocess
         import sys
 
-        from sdr_tpu.utils import synth
+        from sdr_fm.utils import synth
         res = synth.synthesize_fm(duration_s=0.25, mode=2, seed=52,
                                   with_rds=False)
         raw = tmp_path / "x2.raw"
@@ -191,7 +191,7 @@ class TestReferenceBinary:
         assert len(ref_pcm) > 0, ref.stderr.decode()[:300]
 
         ours = subprocess.run(
-            [sys.executable, "-m", "sdr_tpu.cli", "--mode", "2", str(raw)],
+            [sys.executable, "-m", "sdr_fm.cli", "--mode", "2", str(raw)],
             capture_output=True, timeout=500,
             env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
                  "PYTHONPATH": "/root/repo", "HOME": "/root"})
@@ -248,7 +248,7 @@ def _exec_reference_script(path, argv, run_dir, patches=()):
 def station_04s(tmp_path_factory):
     """0.4 s synthesized stereo+RDS station written where the upstream
     scripts expect their inputs (both hard-coded filenames)."""
-    from sdr_tpu.utils import synth
+    from sdr_fm.utils import synth
     base = tmp_path_factory.mktemp("upstream")
     (base / "model_run").mkdir()
     d = base / "data" / "lab3_iq_samples"
@@ -270,8 +270,8 @@ class TestCdrCrosscheck:
         """Per-block CDR with carried state: emitted bits AND the
         (pair, start, size) carry must match the reference exactly on
         identical real soft-symbol blocks."""
-        from sdr_tpu import get_mode_config
-        from sdr_tpu.golden import receiver as grx
+        from sdr_fm import get_mode_config
+        from sdr_fm.golden import receiver as grx
         _, iq = station_04s
         mc = get_mode_config(0)
         outs = grx.run_file(iq, mc, stereo=True, with_rds=True)
@@ -294,7 +294,7 @@ class TestCdrCrosscheck:
     def test_noisy_synthetic_symbols(self, ref, rng):
         """Noisy RRC-shaped symbol streams (forcing irregular-pair repairs
         and grid restarts) at both RDS sample-per-symbol rates."""
-        from sdr_tpu.golden import filters as gfilt
+        from sdr_fm.golden import filters as gfilt
         for sps in (26, 43):
             bits = rng.integers(0, 2, size=160)
             manch = np.stack([bits * 2 - 1, 1 - 2 * bits], -1).reshape(-1)
@@ -334,8 +334,8 @@ class TestUpstreamStereoModel:
 
         from scipy import signal as spsig
 
-        from sdr_tpu import get_mode_config
-        from sdr_tpu.golden import receiver as grx
+        from sdr_fm import get_mode_config
+        from sdr_fm.golden import receiver as grx
         base, iq = station_04s
         g = _exec_reference_script("/root/reference/model/stereo.py",
                                    ["stereo.py", "0"],
@@ -386,8 +386,8 @@ class TestUpstreamRdsModel:
     def test_rds_symbols_and_bitstream(self, station_04s):
         import importlib.util as ilu
 
-        from sdr_tpu import get_mode_config
-        from sdr_tpu.golden import receiver as grx
+        from sdr_fm import get_mode_config
+        from sdr_fm.golden import receiver as grx
         base, iq = station_04s
 
         spec = ilu.spec_from_file_location(
@@ -462,7 +462,7 @@ class TestRdsDecode:
         np.testing.assert_array_equal(ours, theirs.astype(np.int64))
 
     def test_framesync_agrees_on_encoded_stream(self, ref):
-        from sdr_tpu.utils.synth import rds_encode_groups
+        from sdr_fm.utils.synth import rds_encode_groups
         _, framed = rds_encode_groups(np.random.default_rng(5), 2)
         ours = grds.frame_sync(framed)
         offset, consumed = ref.framesync(framed)

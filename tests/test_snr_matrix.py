@@ -1,4 +1,4 @@
-"""SNR robustness gates (VERDICT r1 #6 / r2 #3; SURVEY.md §4.3-4.4).
+"""SNR robustness gates (SURVEY.md §4.3-4.4).
 
 Two layers:
 
@@ -20,10 +20,10 @@ import os
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.models import rds_decode, rds_groups
-from sdr_tpu.models.receiver import Receiver
-from sdr_tpu.utils import metrics, synth
+from sdr_fm import config as cfg
+from sdr_fm.models import rds_decode, rds_groups
+from sdr_fm.models.receiver import Receiver
+from sdr_fm.utils import metrics, synth
 
 ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs", "snr_matrix.json")
@@ -87,7 +87,7 @@ class TestArtifact:
                         >= r["rds_reference"]["frames"]), r["noise_std"]
 
     def test_error_correction_extends_noise_floor(self, matrix):
-        """The burst-<=5 correction (VERDICT r4 #8) must measurably
+        """The burst-<=5 correction must measurably
         extend frame recovery below the exact-match threshold: the
         perfect-word-accuracy level moves from noise_std=0.2 (exact) to
         0.4 (corrected) — a 20*log10(0.4/0.2) = 6 dB extension, beating

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from sdr_tpu import config as cfg
-from sdr_tpu.utils import gen, logfiles, profiling
+from sdr_fm import config as cfg
+from sdr_fm.utils import gen, logfiles, profiling
 
 
 class TestMacModel:
@@ -83,7 +83,7 @@ class TestAnim:
     def test_gif_render(self, tmp_path):
         """Per-block PSD animation renders headless
         (ref model/fmMonoAnim.py)."""
-        from sdr_tpu.utils import anim, synth
+        from sdr_fm.utils import anim, synth
         res = synth.synthesize_fm(duration_s=0.1, mode=0, with_rds=False,
                                   seed=4)
         iq = synth.u8_to_float(res.iq_u8)
@@ -95,7 +95,7 @@ class TestAnim:
 
 class TestPlots:
     def test_psd_and_constellation_pngs(self, tmp_path):
-        from sdr_tpu.utils import plotting
+        from sdr_fm.utils import plotting
         x = gen.add_sin(240e3, [19e3, 38e3], 8192)
         p1 = plotting.save_psd_png(str(tmp_path / "psd.png"), x, 240e3)
         p2 = plotting.save_constellation_png(

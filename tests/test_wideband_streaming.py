@@ -1,5 +1,4 @@
-"""Streaming wideband CLI: incremental wav, per-station RDS, resume-exact
-(VERDICT r2 #4).
+"""Streaming wideband CLI: incremental wav, per-station RDS, resume-exact.
 
 The wideband path previously accumulated every block's audio/symbols in
 host lists and decoded RDS only at EOF; now it streams —
@@ -20,8 +19,8 @@ import sys
 import numpy as np
 import pytest
 
-from sdr_tpu import io as sio
-from sdr_tpu.utils import synth
+from sdr_fm import io as sio
+from sdr_fm.utils import synth
 
 CLI_ENV = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": "/root/repo", "HOME": "/root"}
@@ -63,7 +62,7 @@ def wideband():
 
 def _run_cli(raw_path, prefix, extra=()):
     r = subprocess.run(
-        [sys.executable, "-m", "sdr_tpu.cli", "--mode", "0", "--stereo",
+        [sys.executable, "-m", "sdr_fm.cli", "--mode", "0", "--stereo",
          "--rds", "--wideband", "9600000", "--offsets=-1500000,2000000",
          str(raw_path), "--wav", "-o", str(prefix), *extra],
         capture_output=True, timeout=900, env=CLI_ENV)
@@ -73,7 +72,7 @@ def _run_cli(raw_path, prefix, extra=()):
 
 class TestWidebandResume:
     def test_split_run_bit_identical(self, wideband, tmp_path):
-        from sdr_tpu import config as cfg
+        from sdr_fm import config as cfg
         mc = cfg.get_mode_config(0)
         bs_wide = mc.default_block_size(True) * 4   # decim 9.6e6/2.4e6
         iq = wideband.iq_u8
@@ -114,7 +113,7 @@ class TestWidebandResume:
             assert "PI=" in line_set
 
     def test_resume_warns_on_algo_mismatch(self, wideband, tmp_path):
-        from sdr_tpu import config as cfg
+        from sdr_fm import config as cfg
         mc = cfg.get_mode_config(0)
         bs_wide = mc.default_block_size(True) * 4
         iq = wideband.iq_u8
